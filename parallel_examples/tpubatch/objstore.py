@@ -5,13 +5,12 @@ parallel_examples/awsbatch/do_prepare.py / do_tile.py / do_stitch.py).
 
 Three backends:
 
-- ``file://<dir>`` — a shared filesystem directory (NFS/Filestore on a
-  TPU-VM pool; a tempdir in CI). Always available.
+- ``file://<dir>`` — a shared filesystem directory (NFS on a cluster;
+  a tempdir in CI). Always available.
 - ``s3://<bucket>/<prefix>`` — S3 via boto3 when installed (the
   reference's data plane); gated, never imported unless used.
 - ``gs://<bucket>/<prefix>`` — GCS via google-cloud-storage when
-  installed (the natural data plane for Cloud TPU-VM pools; see
-  template/main.tf); gated, never imported unless used.
+  installed; gated, never imported unless used.
 
 Objects are addressed by simple relative keys. DIRECTORY-shaped
 artifacts (the ``.npseg`` datasets the GDAL-less pipeline produces are

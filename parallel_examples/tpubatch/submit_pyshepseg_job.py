@@ -2,27 +2,29 @@
 """
 Submit the three-phase decoupled segmentation pipeline
 (prepare -> array of tile jobs -> stitch) to an execution backend.
-TPU-native analogue of the reference's
+Analogue of the reference's
 parallel_examples/awsbatch/submit-pyshepseg-job.py (which wires the same
 DAG through AWS Batch job dependencies).
 
 Backends:
 
-- ``local``   — run every phase as local subprocesses, tile jobs with a
-  bounded pool. Exercises the exact pipeline end-to-end on one machine
-  (the batch analogue of tiling's CONC_SUBPROC test backend).
-- ``slurm``   — emit (and optionally run) sbatch scripts: one prepare
-  job, one array job of tiles (--array=0-N-1, one TPU-VM each via
-  ``--gres``/partition of your site), one dependent stitch job.
-- ``gcpbatch``— emit gcloud batch JSON job specs with taskCount=N for
-  the tile phase on a TPU-VM instance template.
+- ``local``   — run every phase as local subprocesses. With NVIDIA cards
+  (found by ``nvidia-smi -L``) tile jobs run one process per card at a
+  time, each pinned to its card through CUDA_VISIBLE_DEVICES, because a
+  JAX process reserves most of a card's memory. Without cards they run
+  on the CPU in a pool of ``--workers`` processes. Exercises the exact
+  pipeline end-to-end on one machine (the batch analogue of tiling's
+  CONC_SUBPROC test backend).
+- ``slurm``   — emit sbatch scripts: one prepare job, one array job of
+  tiles (--array=0-N-1, one GPU per task), one dependent stitch job.
 
-For slurm/gcpbatch the emitted artifacts are written to --emit-dir for
-review/submission; this script does not talk to cloud APIs itself.
+For slurm the emitted artifacts are written to --emit-dir for
+review/submission; this script does not submit them itself.
 """
 
 import argparse
 import os
+import queue
 import re
 import subprocess
 import sys
@@ -34,7 +36,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 def getCmdargs():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--backend", default="local",
-                   choices=["local", "slurm", "gcpbatch"])
+                   choices=["local", "slurm"])
     p.add_argument("--infile", required=True)
     p.add_argument("--store", required=True, help="Object store URL")
     p.add_argument("--outname", default="segmentation.npseg")
@@ -44,27 +46,35 @@ def getCmdargs():
     p.add_argument("--bands")
     p.add_argument("--statsbands")
     p.add_argument("--workers", type=int, default=4,
-                   help="local backend: concurrent tile subprocesses")
+                   help="local backend without cards: concurrent tile "
+                        "subprocesses")
     p.add_argument("--emit-dir", default="batch_jobs",
-                   help="slurm/gcpbatch: where to write job artifacts")
-    p.add_argument("--machine-type", default="ct5lp-hightpu-1t",
-                   help="gcpbatch: TPU-VM machine type when no "
-                        "--instance-template is given")
-    p.add_argument("--instance-template",
-                   help="gcpbatch: worker instance template (the "
-                        "Terraform stack's instance_template output)")
-    p.add_argument("--container-image",
-                   help="gcpbatch: worker container (the Makefile's "
-                        "pushed image); default runs the phase scripts "
-                        "directly on the VM image")
+                   help="slurm: where to write job artifacts")
     return p.parse_args()
 
 
-def _run(cmd):
+def _run(cmd, env=None):
     print("+", " ".join(cmd), flush=True)
-    res = subprocess.run(cmd, check=True, capture_output=True, text=True)
+    res = subprocess.run(cmd, check=True, capture_output=True, text=True,
+                         env=env)
     print(res.stdout)
     return res.stdout
+
+
+def localCards():
+    """Indices of this machine's NVIDIA cards, as CUDA_VISIBLE_DEVICES
+    names them: its entries when it is set, else nvidia-smi's list.
+    Empty without cards."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is not None:
+        return [c for c in visible.split(",") if c.strip()]
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    return [str(i) for i, ln in enumerate(out.splitlines())
+            if ln.startswith("GPU ")]
 
 
 def submit_local(cmdargs):
@@ -79,11 +89,24 @@ def submit_local(cmdargs):
     out = _run(prepCmd)
     numTiles = int(re.search(r"NUMTILES=(\d+)", out).group(1))
 
-    def tileJob(i):
-        _run([py, os.path.join(HERE, "do_tile.py"),
-              "--store", cmdargs.store, "--index", str(i)])
+    # one tile process per card at a time; CPU processes otherwise
+    cards = localCards()
+    freeCards = queue.Queue()
+    for c in cards:
+        freeCards.put(c)
 
-    with futures.ThreadPoolExecutor(cmdargs.workers) as pool:
+    def tileJob(i):
+        cmd = [py, os.path.join(HERE, "do_tile.py"),
+               "--store", cmdargs.store, "--index", str(i)]
+        if not cards:
+            return _run(cmd)
+        card = freeCards.get()
+        try:
+            _run(cmd, env=dict(os.environ, CUDA_VISIBLE_DEVICES=card))
+        finally:
+            freeCards.put(card)
+
+    with futures.ThreadPoolExecutor(len(cards) or cmdargs.workers) as pool:
         list(pool.map(tileJob, range(numTiles)))
 
     stitchCmd = [py, os.path.join(HERE, "do_stitch.py"),
@@ -97,6 +120,7 @@ def submit_local(cmdargs):
 SLURM_TEMPLATE = """#!/bin/bash
 #SBATCH --job-name={name}
 #SBATCH --output={name}_%A_%a.log
+#SBATCH --gres=gpu:1
 
 python {script} {args}
 """
@@ -171,76 +195,12 @@ def submit_slurm(cmdargs):
           "dependencies are wired at submission time).")
 
 
-# Script variant: runs the phase scripts from an image that already
-# carries them (or a TPU-VM boot image with the package installed).
-# --instance-template points the allocationPolicy at the worker shape
-# administered by the Terraform stack (template/main.tf
-# instance_template output); --container-image switches the runnable to
-# the worker container built by the Makefile.
-GCP_TEMPLATE = """{{
-  "taskGroups": [{{
-    "taskCount": "{count}",
-    "taskSpec": {{
-      "runnables": [{{
-        {runnable}
-      }}]
-    }}
-  }}],
-  "allocationPolicy": {{
-    "instances": [{{ {instances} }}]
-  }},
-  "logsPolicy": {{ "destination": "CLOUD_LOGGING" }}
-}}
-"""
-
-GCP_RUNNABLE_SCRIPT = '"script": {{ "text": "python {script} {args}" }}'
-GCP_RUNNABLE_CONTAINER = ('"container": {{ "imageUri": "{image}", '
-                          '"commands": ["{script}"{argitems}] }}')
-
-
-def submit_gcpbatch(cmdargs):
-    os.makedirs(cmdargs.emit_dir, exist_ok=True)
-    prep, tiles, stitch = _phaseArgs(cmdargs)
-    specs = [
-        ("psseg_prepare", "do_prepare.py", 1, prep),
-        ("psseg_tiles", "do_tile.py", "NUMTILES", tiles),
-        ("psseg_stitch", "do_stitch.py", 1, stitch),
-    ]
-    if cmdargs.instance_template:
-        instances = ('"instanceTemplate": "{}"'
-                     .format(cmdargs.instance_template))
-    else:
-        instances = ('"installGpuDrivers": false, "policy": '
-                     '{{ "machineType": "{}" }}'
-                     .format(cmdargs.machine_type))
-    for name, script, count, args in specs:
-        if cmdargs.container_image:
-            # container workers run the scripts at the image's WORKDIR
-            argitems = "".join(', "{}"'.format(a) for a in args.split())
-            runnable = GCP_RUNNABLE_CONTAINER.format(
-                image=cmdargs.container_image, script=script,
-                argitems=argitems)
-        else:
-            runnable = GCP_RUNNABLE_SCRIPT.format(
-                script=os.path.join(HERE, script), args=args)
-        path = os.path.join(cmdargs.emit_dir, name + ".json")
-        with open(path, "w") as f:
-            f.write(GCP_TEMPLATE.format(
-                count=count, runnable=runnable, instances=instances))
-        print("wrote", path)
-    print("Submit with: gcloud batch jobs submit <name> "
-          "--config <spec>.json (set taskCount from the prepare output; "
-          "BATCH_TASK_INDEX indexes the tiles).")
-
-
 def main():
     cmdargs = getCmdargs()
     if cmdargs.backend == "local":
         submit_local(cmdargs)
-    elif cmdargs.backend == "slurm":
-        submit_slurm(cmdargs)
     else:
-        submit_gcpbatch(cmdargs)
+        submit_slurm(cmdargs)
     return 0
 
 

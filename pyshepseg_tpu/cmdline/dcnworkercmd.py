@@ -1,12 +1,12 @@
 """
 Multi-controller (DCN) tiled-segmentation job entry point.
 
-Launch this SAME command on every host of a TPU pod job (one process per
-host), giving each its process id; the processes coordinate through the
-JAX distributed service, segment their tile shards on local chips, and
-process 0 stitches the result (see pyshepseg_tpu.parallel.dcn). On Cloud
-TPU pod slices launched through the TPU runtime, the coordinator/process
-arguments can be omitted — jax.distributed discovers them.
+Launch this SAME command on every host of a multi-host job (one process
+per host), giving each its process id; the processes coordinate through
+the JAX distributed service, segment their tile shards on local cards,
+and process 0 stitches the result (see pyshepseg_tpu.parallel.dcn). Under
+a cluster runtime that jax.distributed can discover (e.g. Slurm), the
+coordinator/process arguments can be omitted.
 
 A single-host test drive:
     pyshepseg_tpu_dcnworkercmd -i in.tif -o out.kea -w /shared/work \\
@@ -29,8 +29,8 @@ def getCmdargs():
     p.add_argument("-w", "--workdir", required=True,
         help="SHARED work directory visible to every host")
     p.add_argument("--coordinator",
-        help="coordinator host:port (omit on TPU pod runtimes that "
-             "auto-discover)")
+        help="coordinator host:port (omit under cluster runtimes that "
+             "jax.distributed auto-discovers)")
     p.add_argument("--numprocesses", type=int,
         help="Total process count (omit to auto-discover)")
     p.add_argument("--procid", type=int,
@@ -71,6 +71,7 @@ def getCmdargs():
 def mainCmd():
     args = getCmdargs()
     utils.honourJaxPlatformsEnv()
+    utils.setupCompilationCache()
     bandNumbers = None
     if args.bands is not None:
         bandNumbers = [int(b) for b in args.bands.split(",")]

@@ -86,6 +86,7 @@ def getCmdargs():
 def mainCmd():
     cmdargs = getCmdargs()
     utils.honourJaxPlatformsEnv()
+    utils.setupCompilationCache()
 
     t0 = time.time()
     print("Reading ... ", end='')

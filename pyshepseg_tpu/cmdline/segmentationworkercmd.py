@@ -19,7 +19,8 @@ from pyshepseg_tpu import shepseg
 from pyshepseg_tpu import io as rio
 from pyshepseg_tpu.tiling import NetworkDataChannel
 from pyshepseg_tpu.timinghooks import Timers
-from pyshepseg_tpu.utils import WorkerErrorRecord, honourJaxPlatformsEnv
+from pyshepseg_tpu.utils import (WorkerErrorRecord, honourJaxPlatformsEnv,
+                                 setupCompilationCache)
 
 
 def getCmdargs():
@@ -35,6 +36,7 @@ def getCmdargs():
 def mainCmd():
     cmdargs = getCmdargs()
     honourJaxPlatformsEnv()
+    setupCompilationCache()
     if cmdargs.channaddrfile is not None:
         addrStr = open(cmdargs.channaddrfile).readline().strip()
     else:

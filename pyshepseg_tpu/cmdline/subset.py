@@ -99,6 +99,7 @@ def getExtentOfMaskForInfile(infile, maskfile):
 def mainCmd():
     cmdargs = getCmdargs()
     utils.honourJaxPlatformsEnv()
+    utils.setupCompilationCache()
 
     if cmdargs.srcwin is not None:
         tlx, tly, xsize, ysize = cmdargs.srcwin

@@ -2,7 +2,7 @@
 Command-line tool: full tiled segmentation pipeline
 (reference: pyshepseg/cmdline/tiling.py) — segmentation parameters, tiling
 parameters, per-segment statistics specs, colour tables, and concurrency
-flags (including the TPU-mesh backend).
+flags (including the multi-card mesh backend).
 """
 
 import sys
@@ -93,7 +93,7 @@ def getCmdargs():
     statsGroup.add_argument("--statsengine", default="auto",
         choices=["auto", "host", "device"],
         help="Where the stats pass compacts each tile's (segment, value) "
-             "pairs into histogram runs: 'host' (numpy), 'device' (TPU "
+             "pairs into histogram runs: 'host' (numpy), 'device' ("
              "two-key sort + run-length scatter, bit-identical columns), "
              "or 'auto' to pick per-environment (default=%(default)s)")
     statsGroup.add_argument("--colortablebands",
@@ -176,6 +176,7 @@ def getCmdargs():
 def mainCmd():
     cmdargs = getCmdargs()
     utils.honourJaxPlatformsEnv()
+    utils.setupCompilationCache()
 
     creationOptions = GDAL_DRIVER_CREATION_OPTIONS.get(cmdargs.format, [])
 

@@ -25,6 +25,7 @@ def getCmdargs():
 def mainCmd():
     cmdargs = getCmdargs()
     utils.honourJaxPlatformsEnv()
+    utils.setupCompilationCache()
     cols = [("variogram{}".format(n + 1), rio.GFT_Real)
             for n in range(cmdargs.numvariograms)]
     tilingstats.calcPerSegmentSpatialStatsTiled(

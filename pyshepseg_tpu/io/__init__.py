@@ -10,7 +10,7 @@ small driver abstraction (:mod:`.raster`) with two backends:
 - a pure-numpy directory format (``.npseg``), memmap-backed for windowed
   reads/writes, so the full pipeline (including RATs, overviews, colour
   tables and metadata) runs and is testable in GDAL-less environments
-  like TPU pods with minimal images.
+  like GPU clusters with minimal images.
 
 Framework code is written against the GDAL method names (ReadAsArray,
 WriteArray, GetDefaultRAT, ...), so objects from either backend are

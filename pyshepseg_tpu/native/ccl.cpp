@@ -1,9 +1,9 @@
 // Native host kernels for the irregular, order-dependent operations that
-// neither vectorise onto the TPU nor onto numpy:
+// neither vectorise onto the device nor onto numpy:
 //
 // - flood_fill_clump: scan-order flood-fill connected-component labelling
 //   with the reference's MAX_CLUMP_SIZE cap semantics (reference:
-//   pyshepseg/shepseg.py:452-541). The TPU clump kernel (ops/clump.py)
+//   pyshepseg/shepseg.py:452-541). The device clump kernel (ops/clump.py)
 //   computes exact components and documents the cap as a deviation; this
 //   host path exists for users who need bit-parity with the reference's
 //   cap-split geometry (stack-order dependent, inherently sequential).

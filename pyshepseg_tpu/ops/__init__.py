@@ -1,5 +1,5 @@
 """
-Device kernels (JAX/XLA/Pallas) for the TPU-native segmentation engine.
+Device kernels (JAX/XLA) for the segmentation engine.
 
 Each module here replaces one of the reference's numba kernels
 (reference: pyshepseg/shepseg.py, see SURVEY.md section 2.3) with a
@@ -14,5 +14,5 @@ data-parallel, statically-shaped formulation suitable for XLA compilation:
   (replaces ``mergeSinglePixels`` / ``findNearestNeighbourPixel``)
 - :mod:`.elim_small` — the iterative small-segment elimination loop
   (replaces ``eliminateSmallSegments`` / ``findMergeSegment`` / ``doMerge``)
-- :mod:`.kmeans` — Lloyd's k-means on the MXU (replaces sklearn KMeans)
+- :mod:`.kmeans` — Lloyd's k-means as matrix products (replaces sklearn KMeans)
 """

@@ -1,5 +1,5 @@
 """
-Connected-component labelling ("clumping") on TPU.
+Connected-component labelling ("clumping") on the JAX device.
 
 Replaces the reference's scan-order flood fill
 (reference: pyshepseg/shepseg.py:452-541) with an iterative data-parallel
@@ -15,6 +15,12 @@ labels only ever decrease, via three complementary mechanisms per sweep:
 3. one pointer-jumping step (label = label[label]) that collapses long
    label chains so spiral-shaped components converge in O(log) sweeps.
 
+The sweeps first run to a fixpoint inside each BLOCK x BLOCK block (the
+blocks are one vmapped batch). Components that cross block boundaries
+are then merged through the small graph of boundary-straddling label
+pairs, the result is verified against every connected pixel pair, and
+only when that check fails do the global sweeps run.
+
 At the fixpoint every component carries the flat index of its first pixel
 in row-major scan order, which is exactly the order in which the reference's
 flood fill seeds new clumps — so the final scan-order relabel reproduces the
@@ -23,7 +29,7 @@ reference's clump ID assignment bit-for-bit.
 Deviation from the reference (documented): the reference caps flood-fill
 growth at MAX_CLUMP_SIZE=10000 pixels purely as a CPU performance guard,
 splitting larger uniform areas into multiple clumps with stack-order
-dependent geometry (shepseg.py:477-481, 502). The TPU propagation has no
+dependent geometry (shepseg.py:477-481, 502). The label propagation has no
 such pathology, so by default clumps are exact connected components. For
 inputs where every component is below the cap (>99.9% of segments in the
 reference's own testing) the outputs are identical.
@@ -69,25 +75,85 @@ def _run_min(labels, conn_prev, axis, sentinel):
     return jnp.minimum(fwd, bwd)
 
 
-def _pallas_seed_labels(img, ignore_val, four_connected, valid, sentinel):
-    """
-    Seed the global loop with block-locally converged labels from the
-    Pallas VMEM kernel (ops/pallas_ccl.py). The kernel works on an image
-    padded to block multiples; returned flat indices are translated from
-    padded to unpadded coordinates (both row-major, so lexicographic
-    (y, x) order — and with it the min-index root rule — is preserved).
-    """
-    from .pallas_ccl import local_ccl_blocks, block_shape_for
+# Block edge of the block-local solve, and the cap on its sweeps (labels
+# only decrease, so an unconverged block is still a valid seed: the
+# verify step then sends the image through the global sweeps).
+BLOCK = 256
+MAX_LOCAL_ITERS = 64
 
+
+def _connectivity(img, valid, four_connected, ignore_val):
+    """(conn, conn_row, conn_col, diag): ``conn(dy, dx)`` marks pixels
+    connected to their neighbour at (dy, dx); conn_row/conn_col are the
+    left and upper neighbours; diag lists (dy, dx, conn) for the
+    diagonal offsets of the connectivity (the run scans cover the
+    horizontal and vertical ones much further per sweep)."""
+    def conn(dy, dx):
+        # valid-shift masks both out-of-image and null neighbours, so the
+        # fill value of the img shift never reaches the comparison result
+        return (valid & shift(valid, dy, dx, False) &
+                (img == shift(img, dy, dx, ignore_val)))
+
+    diag = [(dy, dx, conn(dy, dx)) for dy, dx in offsets_for(four_connected)
+            if dy != 0 and dx != 0]
+    return conn, conn(0, -1), conn(-1, 0), diag
+
+
+def _sweep(labels, conn_row, conn_col, diag, sentinel):
+    """One propagation sweep: diagonal neighbour min, then the row and
+    column run scans."""
+    new = labels
+    for dy, dx, same in diag:
+        new = jnp.minimum(new, jnp.where(
+            same, shift(new, dy, dx, sentinel), sentinel))
+    new = _run_min(new, conn_row, 1, sentinel)
+    return _run_min(new, conn_col, 0, sentinel)
+
+
+def _local_sweeps(labels, img, valid, four_connected, sentinel, ignore_val):
+    """Sweep one block until its labels stop changing (at most
+    MAX_LOCAL_ITERS sweeps)."""
+    _, conn_row, conn_col, diag = _connectivity(img, valid, four_connected,
+                                                ignore_val)
+
+    def body(carry):
+        lab, _, it = carry
+        new = _sweep(lab, conn_row, conn_col, diag, sentinel)
+        return new, jnp.any(new != lab), it + 1
+
+    lab, _, _ = jax.lax.while_loop(
+        lambda c: c[1] & (c[2] < MAX_LOCAL_ITERS), body,
+        (labels, jnp.bool_(True), jnp.int32(0)))
+    return lab
+
+
+def _block_seed_labels(img, ignore_val, four_connected, valid, sentinel):
+    """
+    Block-locally converged labels in plain JAX: the image (padded with
+    ``ignore_val`` to whole blocks) is reshaped into BLOCK x BLOCK blocks
+    and the sweep loop is vmapped over them. Labels are flat indices of
+    the unpadded image, so the global loop's min-index root rule holds.
+    """
     h, w = img.shape
-    blk, (hp, wp) = block_shape_for(h, w)
-    img_p = jnp.pad(img, ((0, hp - h), (0, wp - w)), mode="constant",
+    by, bx = min(BLOCK, h), min(BLOCK, w)
+    hp, wp = -(-h // by) * by, -(-w // bx) * bx
+    img_p = jnp.pad(img, ((0, hp - h), (0, wp - w)),
                     constant_values=ignore_val)
-    lab_p = local_ccl_blocks(img_p, ignore_val, four_connected, block=blk)
-    lab = lab_p[:h, :w]
-    ly = lab // wp
-    lx = lab % wp
-    return jnp.where(valid, ly * w + lx, sentinel)
+    valid_p = jnp.pad(valid, ((0, hp - h), (0, wp - w)))
+    yy = jax.lax.broadcasted_iota(jnp.int32, (hp, wp), 0)
+    xx = jax.lax.broadcasted_iota(jnp.int32, (hp, wp), 1)
+    lab_p = jnp.where(valid_p, yy * w + xx, sentinel)
+
+    def blocks(a):
+        return (a.reshape(hp // by, by, wp // bx, bx)
+                .transpose(0, 2, 1, 3).reshape(-1, by, bx))
+
+    out = jax.vmap(lambda lab, im, va: _local_sweeps(
+        lab, im, va, four_connected, sentinel, ignore_val))(
+            blocks(lab_p), blocks(img_p), blocks(valid_p))
+    out = (out.reshape(hp // by, wp // bx, by, bx)
+           .transpose(0, 2, 1, 3).reshape(hp, wp))
+    return out[:h, :w]
 
 
 def _boundary_edges(labels, img, ignore_val, by, bx, four_connected,
@@ -174,8 +240,7 @@ def _merge_boundary_roots(ea, eb, sentinel):
     return uniq, m
 
 
-def clump_labels(img, ignore_val, four_connected=True, use_pallas=None,
-                 jump_every=8, two_level=None):
+def clump_labels(img, ignore_val, four_connected=True, jump_every=8):
     """
     Device kernel: label connected components of equal-valued pixels.
 
@@ -187,36 +252,15 @@ def clump_labels(img, ignore_val, four_connected=True, use_pallas=None,
         Null value in ``img``.
     four_connected : bool (static)
         4-way vs 8-way connectedness.
-    use_pallas : bool or None (static)
-        Seed the global loop with the Pallas block-local CCL kernel
-        (None = yes; interpreted off-TPU).
-    two_level : bool or None (static)
-        Merge block-local labels through the contracted boundary-root
-        graph (verified, with a lax.cond fallback into the global
-        sweeps) instead of always sweeping. None = backend-dependent:
-        ON for CPU/interpret backends, OFF for TPU. Measured A/B on the
-        config-1 scene (same labels asserted): on a v5e the plain
-        sweeps path is 8.9 ms vs two-level's 20.1 ms — the merge's
-        fixed costs (boundary extraction, the edge-graph while_loop's
-        serialized tiny ops, the full-image verify) dwarf the 5 run-scan
-        sweeps it saves; on XLA:CPU the same A/B is 536 ms vs 1996 ms
-        in two-level's favour (each sweep streams the image ~40x, which
-        the CPU pays at memory speed serially). Callers that ``vmap``
-        this function should pass False: under vmap a cond runs BOTH
-        branches, so the sweeps execute anyway and the fast path's
-        verify/gather become pure overhead.
     jump_every : int (static)
-        Run the pointer-jumping hop on every ``jump_every``-th sweep.
-        The hop is a full-image gather (~7 ms/Mpix on a v5e — by far
-        the costliest op in the sweep), while a plain sweep is ~1.2 ms
-        of streaming run scans; typical scenes converge from the Pallas
-        block-local seeds in 3-4 sweeps WITHOUT ever jumping, so a
-        sparse schedule wins. Measured on the config-1 scene (v5e,
-        identical labels asserted): every-2nd-sweep 16.5 ms / 3 sweeps,
-        every-4th 16.3 ms / 4 sweeps (the jump still fired once),
-        every-8th 9.1 ms / 4 sweeps (never fired). Spiral-shaped label
-        chains still collapse multiplicatively, just starting sweeps
-        later — 8 keeps that backstop at zero typical-case cost.
+        Run the pointer-jumping hop (a full-image gather) on every
+        ``jump_every``-th global sweep. Typical inputs converge in a few
+        sweeps without it; spiral-shaped label chains still collapse
+        multiplicatively, just starting later. Not yet tuned on a GPU.
+
+    Under ``vmap`` the verify step's ``lax.cond`` becomes a select, so
+    both the merged labels and the global sweeps are computed; the
+    result is the same.
 
     Returns
     -------
@@ -225,38 +269,18 @@ def clump_labels(img, ignore_val, four_connected=True, use_pallas=None,
     num_clumps : uint32 scalar
         Number of components found.
     num_sweeps : int32 scalar
-        Global propagation sweeps until the fixpoint (each sweep streams
-        the whole image ~40x through the run scans — the dominant
-        memory-bound cost, see BASELINE.md's roofline notes).
+        Global propagation sweeps until the fixpoint: 0 when the
+        block-local solve and the boundary merge were already exact.
     """
     h, w = img.shape
     n = h * w
     sentinel = jnp.int32(n)
     valid = img != ignore_val
-    if use_pallas is None:
-        use_pallas = True
-    if use_pallas:
-        labels0 = _pallas_seed_labels(img, ignore_val, four_connected,
-                                      valid, sentinel)
-    else:
-        idx = jnp.arange(n, dtype=jnp.int32).reshape(h, w)
-        labels0 = jnp.where(valid, idx, sentinel)
+    labels0 = _block_seed_labels(img, ignore_val, four_connected, valid,
+                                 sentinel)
 
-    # Connectivity along rows/cols (pass-invariant)
-    def conn(dy, dx):
-        # valid-shift masks both out-of-image and null neighbours, so the
-        # fill value of the img shift never reaches the comparison result
-        return (valid & shift(valid, dy, dx, False) &
-                (img == shift(img, dy, dx, ignore_val)))
-
-    conn_row = conn(0, -1)   # connected to left neighbour
-    conn_col = conn(-1, 0)   # connected to upper neighbour
-
-    # Diagonal offsets only — horizontal/vertical propagation is handled
-    # (much further per sweep) by the run scans.
-    diag_offsets = [(dy, dx) for dy, dx in offsets_for(four_connected)
-                    if dy != 0 and dx != 0]
-    nbr_same = [(dy, dx, conn(dy, dx)) for dy, dx in diag_offsets]
+    conn, conn_row, conn_col, diag = _connectivity(img, valid,
+                                                   four_connected, ignore_val)
 
     def slow(labels_in):
         """The global fixpoint loop, the correctness anchor: converges
@@ -266,22 +290,14 @@ def clump_labels(img, ignore_val, four_connected=True, use_pallas=None,
 
         def body(carry):
             labels, _, sweep = carry
-            new = labels
-            for dy, dx, same in nbr_same:
-                new = jnp.minimum(new,
-                                  jnp.where(same,
-                                            shift(new, dy, dx, sentinel),
-                                            sentinel))
-            new = _run_min(new, conn_row, 1, sentinel)
-            new = _run_min(new, conn_col, 0, sentinel)
+            new = _sweep(labels, conn_row, conn_col, diag, sentinel)
 
             # One pointer-jumping hop collapses label chains
-            # multiplicatively, but costs a full-image gather — by far
-            # the most expensive op in the sweep. Typical inputs
-            # converge in a handful of sweeps from the block-local
-            # seeds without it, so only pay for it sparsely;
-            # pathological spiral components still converge in O(log)
-            # sweeps.
+            # multiplicatively, but costs a full-image gather. Typical
+            # inputs converge in a handful of sweeps from the
+            # block-local seeds without it, so only pay for it
+            # sparsely; pathological spiral components still converge
+            # in O(log) sweeps.
             def jump(x):
                 flat = x.ravel()
                 flat_ext = jnp.concatenate(
@@ -303,45 +319,20 @@ def clump_labels(img, ignore_val, four_connected=True, use_pallas=None,
         rank_ext = jnp.concatenate([rank, jnp.zeros(1, jnp.uint32)])
         return rank_ext, flat, num_sweeps, rank[-1]
 
-    # TWO-LEVEL fast path: the Pallas seed already solved each block
+    # TWO-LEVEL fast path: the block seeds already solved each block
     # locally, so the only remaining work is merging roots ACROSS block
     # boundaries — a contracted graph of boundary-straddling label
-    # pairs, solved in edge-sized arrays (microseconds), instead of
-    # 3-4 global sweeps that each stream the whole image ~40x. Local
-    # convergence isn't guaranteed (the kernel caps its iterations), so
-    # the result is VERIFIED by one cheap streaming check — every
-    # connected pixel pair must share a final label, which for
-    # min-propagated labels is exactly component correctness — with a
-    # lax.cond fallback into the global loop on failure.
-    if two_level is None:
-        # backend-dependent default — see the docstring's measured A/B.
-        # Prefer the platform the computation actually targets (the
-        # input's committed device) over the process-global default:
-        # on a TPU host running CPU-placed work, default_backend()
-        # still says 'tpu' and would pick the path that the A/B
-        # measured ~4x slower on XLA:CPU. Tracers (calls under an
-        # outer jit) carry no device — fall back to default_backend().
-        platform = None
-        try:
-            sharding = getattr(img, "sharding", None)
-            if sharding is not None and sharding.device_set:
-                platform = next(iter(sharding.device_set)).platform
-        except Exception:
-            platform = None
-        if platform is None:
-            platform = jax.default_backend()
-        two_level = platform != "tpu"
-    fast_edges = None
-    if use_pallas and two_level:
-        from .pallas_ccl import block_shape_for
-        (by, bx), _ = block_shape_for(h, w)
-        ea, eb = _boundary_edges(labels0, img, ignore_val, by, bx,
-                                 four_connected, sentinel)
-        if ea.shape[0] > 0:   # static: >1 block in some axis
-            fast_edges = (ea, eb)
-
-    if fast_edges is not None:
-        uniq, m = _merge_boundary_roots(*fast_edges, sentinel)
+    # pairs, solved in edge-sized arrays, instead of global sweeps that
+    # each stream the whole image many times. Local convergence isn't
+    # guaranteed (the block loop caps its iterations), so the result is
+    # VERIFIED by one streaming check — every connected pixel pair must
+    # share a final label, which for min-propagated labels is exactly
+    # component correctness — with a lax.cond fallback into the global
+    # loop on failure.
+    ea, eb = _boundary_edges(labels0, img, ignore_val, min(BLOCK, h),
+                             min(BLOCK, w), four_connected, sentinel)
+    if ea.shape[0] > 0:   # static: more than one block
+        uniq, m = _merge_boundary_roots(ea, eb, sentinel)
         flat0 = labels0.ravel()
         is_root = ((flat0 == jnp.arange(n, dtype=jnp.int32)) &
                    valid.ravel())
@@ -375,8 +366,7 @@ def clump_labels(img, ignore_val, four_connected=True, use_pallas=None,
 
 
 _clump_jit = jax.jit(clump_labels,
-                     static_argnames=("four_connected", "use_pallas",
-                                      "jump_every", "two_level"))
+                     static_argnames=("four_connected", "jump_every"))
 
 
 def clump(img, ignoreVal, fourConnected=True, clumpId=1, maxClumpSize=None):
@@ -392,7 +382,7 @@ def clump(img, ignoreVal, fourConnected=True, clumpId=1, maxClumpSize=None):
     shepseg.py:477-481). The cap's geometry is inherently sequential, so
     that path runs the native C++ flood fill on the host
     (pyshepseg_tpu/native/ccl.cpp); the default (None) is the exact
-    TPU label-propagation kernel.
+    device label propagation.
     """
     if maxClumpSize is not None:
         from ..native import flood_fill_clump

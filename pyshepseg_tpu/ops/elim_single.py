@@ -1,5 +1,5 @@
 """
-Single-pixel elimination on TPU.
+Single-pixel elimination on the JAX device.
 
 Replaces the reference's per-pixel scalar scan
 (reference: pyshepseg/shepseg.py:572-736) with whole-image masked

@@ -1,5 +1,5 @@
 """
-Small-segment elimination on TPU — the algorithm's hot loop.
+Small-segment elimination on the JAX device — the algorithm's hot loop.
 
 Replaces the reference's sequential merge machinery
 (reference: pyshepseg/shepseg.py:918-1123) with per-pass data-parallel
@@ -26,10 +26,10 @@ exactly-equal spectral distances. We document two deviations:
 
 Both only matter on exact floating-point ties.
 
-TPU-native formulation — GRAPH space, not image space
------------------------------------------------------
+Data-parallel formulation — GRAPH space, not image space
+--------------------------------------------------------
 The reference rescans segment pixels and their 3x3 windows every pass. A
-dense whole-image pass on TPU costs O(H*W) regardless of how few candidate
+dense whole-image pass costs O(H*W) regardless of how few candidate
 segments exist, and the targetSize x fixpoint loop nest runs hundreds of
 passes. Key observation: segments only ever merge, so the *current*
 segment adjacency is the image's original adjacency pushed through an
@@ -141,17 +141,12 @@ def edge_sort_keys_compact(seg, four_connected: bool, b_cap: int,
                            r_cap: int, id_bound: int):
     """
     Device: edge_sort_keys with the boundary pairs ROW-COMPACTED before
-    the dedup sort. The O(H*W)-key sort — the most expensive single op
-    in the one-shot pipeline (~14 ms per Mpix on a v5e, 2 (4-conn) or 4
-    (8-conn) key candidates per pixel, almost all padding) — becomes:
+    the dedup sort. The O(H*W)-key sort (2 (4-conn) or 4 (8-conn) key
+    candidates per pixel, almost all padding) becomes:
 
     1. a batched PER-ROW sort of the (H, W*ndirs) candidate matrix along
        its minor axis (pad keys sort last, so each row's valid pairs
-       compact to its front) — a sorting network over rows costs
-       O(log^2 W) cheap streaming stages and involves NO scatter (an
-       earlier variant compacted with a global cumsum + full-size
-       scatter; the 2M-element scatter serialises on TPU and cost more
-       than the sort it saved — measured);
+       compact to its front), with no scatter;
     2. a static slice to (H, r_cap) — ``r_cap`` (static) speculatively
        bounds the boundary pairs in any single image row;
     3. ONE global sort of the H*r_cap survivors, sliced to b_cap —
@@ -240,11 +235,10 @@ def compact_edges(a, b, first, e_cap: int, id_bound: int = None):
 
 # Below this capacity the two per-pass segment_min reductions run as
 # fused one-hot masked min reductions over an (2E, capacity) broadcast
-# instead of XLA scatter-mins. The scatter is SERIAL (~7 cycles per
-# element, ~77 us at 12K edges, measured on-chip); the masked min is
-# vectorized VPU work costing 2E*capacity/1024 cycles, so it wins while
-# capacity < ~8K lanes-per-cycle-equivalents. min is exact and
-# order-independent, so the two forms are bit-identical.
+# instead of XLA scatter-mins. The broadcast costs 2E*capacity
+# elementwise work, so it only pays for small capacities. min is exact
+# and order-independent, so the two forms are bit-identical. The
+# threshold is not yet tuned on a GPU.
 ONEHOT_MIN_MAX_CAP = 8192
 
 
@@ -258,11 +252,8 @@ def _merge_pass_edges(ids2, remap, table, target, max_diff_sqr):
     per-pass state.
 
     OP economy is the whole game here: each pass runs ~40+ times per
-    tile over arrays of a few thousand elements, and on TPU the
-    unfusable gather/scatter ops are SERIAL (~7 cycles per element:
-    measured on-chip, a 12K<-4K gather costs 83 us and a 12K->4K
-    segment_min 77 us while all the fused elementwise work combined is
-    ~50 us). Hence:
+    tile over arrays of a few thousand elements, so every unfused
+    gather and scatter is a separate kernel launch. Hence:
 
     - the ENTIRE per-segment state lives in ONE (nBands+1, capacity)
       float32 table (row 0 = size, rows 1.. = band sums) that is carried
@@ -272,15 +263,11 @@ def _merge_pass_edges(ids2, remap, table, target, max_diff_sqr):
     - per-segment MEANS are computed once on the (capacity,)-sized table
       and gathered per-edge (same IEEE quotients as dividing after the
       gather — bit-identical decisions), so the big (2E,) arrays see
-      only one stacked mean/size gather (the multi-row form of XLA's
-      gather vectorizes across channels: 17 us for 5x12K, CHEAPER than
-      a single-channel gather);
-    - the remap gather and the remap composition route through the
-      Pallas VMEM LUT kernel on TPU (ops/lut.py: 12 us vs 83 us);
+      only one stacked mean/size gather;
     - the two segment_min scatters (best distance, then best neighbour
       at that distance) run as fused one-hot masked MIN reductions over
       an (2E, capacity) broadcast when capacity <= ONEHOT_MIN_MAX_CAP —
-      vectorized VPU work instead of a serial scatter, and the masked
+      fused elementwise work instead of a scatter, and the masked
       form needs NO d_best[cur2] read-back gather (the hit test happens
       in the broadcast space). min is exact, so both forms are
       bit-identical; large capacities keep the scatter (the broadcast
@@ -296,8 +283,6 @@ def _merge_pass_edges(ids2, remap, table, target, max_diff_sqr):
     size may round to an even neighbour — harmless for every decision
     above, and flagged in eliminate_small_segments_graph's docstring.
     """
-    from . import lut
-
     capacity = table.shape[1]
     E2 = ids2.shape[0]
     E = E2 // 2
@@ -313,10 +298,7 @@ def _merge_pass_edges(ids2, remap, table, target, max_diff_sqr):
     mtab = jnp.concatenate(
         [size[None], table[1:] / jnp.maximum(size, 1.0)[None]])
 
-    if lut.use_lut(capacity):                           # (2E,) gather #1
-        cur2 = lut.lut_gather_flat(ids2, remap).astype(jnp.int32)
-    else:
-        cur2 = remap[ids2].astype(jnp.int32)
+    cur2 = remap[ids2].astype(jnp.int32)                # (2E,) gather #1
     cur_a, cur_b = cur2[:E], cur2[E:]
     live = (cur_a != cur_b) & (cur_a != SEGNULLVAL) & (cur_b != SEGNULLVAL)
 
@@ -359,10 +341,7 @@ def _merge_pass_edges(ids2, remap, table, target, max_diff_sqr):
     # Apply all merges at once (commutative: targets are never candidates)
     move = merge_to != SEGNULLVAL
     merge_map = jnp.where(move, merge_to, ids)
-    if lut.use_lut(capacity):
-        remap_new = lut.lut_gather_flat(remap, merge_map)
-    else:
-        remap_new = merge_map[remap.astype(jnp.int32)]
+    remap_new = merge_map[remap.astype(jnp.int32)]
 
     # one multi-channel capacity-sized scatter updates size + every band
     # sum (non-movers scatter zeros onto the null segment's row)
@@ -448,20 +427,12 @@ def _remap_and_relabel(seg, remap, seg_size_out):
     Device: apply the orig->current id remap and the contiguous relabel
     with ONE full-image gather. relabel subtracts per *current* id, so
     the two maps compose into a single capacity-sized table:
-    table[orig] = remap[orig] - sub[remap[orig]].
-
-    On TPU with a small-enough table the gather routes through the
-    Pallas LUT kernel (ops/lut.py): the table lives in VMEM and lanes
-    are picked with vectorized dynamic_gather instead of XLA's generic
-    ~7-cycles/element gather (reference hot path this accelerates:
+    table[orig] = remap[orig] - sub[remap[orig]] (reference hot path:
     relabelSegments, pyshepseg/shepseg.py:739-777).
     """
     from .segreduce import relabel_subtract
-    from . import lut
     sub = relabel_subtract(seg_size_out, MINSEGID)
     table = (remap - sub[remap.astype(jnp.int32)]).astype(jnp.uint32)
-    if lut.use_lut(table.shape[0]):
-        return lut.lut_gather(seg, table)
     return table[seg.astype(jnp.int32)]
 
 

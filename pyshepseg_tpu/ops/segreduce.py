@@ -6,7 +6,7 @@ Replaces the reference's histogram / spectral-sum / relabel scalar loops
 ``jax.ops.segment_sum`` reductions, and the per-segment pixel-location
 typed-dict (``RowColArray`` / ``makeSegmentLocations``,
 shepseg.py:816-915) with a CSR layout built from a stable sort — the
-static-shape, gather-friendly equivalent on TPU.
+static-shape, gather-friendly equivalent on the device.
 
 All device functions take a static ``capacity`` (= max segment ID + 1,
 rounded to a bucket by callers) because XLA requires static shapes; the
@@ -111,10 +111,8 @@ def seg_sizes_and_spectral_sums_runlength(seg, band_planes, capacity: int,
     RUN-LENGTH compaction — the fast path replacing the big
     (H*W)-index scatter of :func:`seg_sizes_and_spectral_sums_planes`.
 
-    On TPU an XLA scatter is SERIAL per index (~7-9 cycles/element; the
-    1M-index multi-channel scatter costs ~9.5 ms on a v5e at 1024^2 —
-    the largest single stage of the fused one-shot pipeline, measured by
-    scripts/profile_stages.py). Segment images are spatially coherent
+    The full-image scatter writes one update per pixel. Segment images
+    are spatially coherent
     (clump labels come from a run scan), so almost all of those indices
     are consecutive repeats. This path aggregates each horizontal run
     first and scatters one entry PER RUN:
@@ -192,8 +190,7 @@ def seg_reduce_and_remap_runlength(seg_clump, seg_post, band_planes,
     The fused pipelines need ``remap0[c] = post-single-pixel-elim id of
     clump c`` to seed the graph elimination. Building it as a full-image
     scatter (``iota.at[seg_clump.ravel()].set(seg_post.ravel())``) costs
-    another serial H*W-index scatter — as expensive as the reduction it
-    sits next to. But every horizontal run of the CLUMP image is
+    another H*W-index scatter. But every horizontal run of the CLUMP image is
     constant in BOTH ids (the single-pixel merge maps each clump
     wholesale: survivors keep their id, a singleton's one pixel — a
     length-1 run — carries its absorber's), so one gather at the clump
@@ -312,7 +309,7 @@ def relabelSegments(seg, segSize, minSegId):
 
 class SegmentLocations:
     """
-    CSR index of per-segment pixel locations — the static-shape TPU-era
+    CSR index of per-segment pixel locations — the static-shape
     replacement for the reference's ``RowColArray`` typed dict
     (reference: shepseg.py:816-915). Built once with a stable sort; lookup
     is O(1) slicing. Pixel order within a segment is row-major scan order,

@@ -4,7 +4,7 @@ Device kernels for the per-segment statistics engine.
 The stats pass's dominant per-tile cost is compacting (segment, value)
 pixel pairs into sorted run-length histograms
 (reference accumulateSegDict, pyshepseg/tilingstats.py:466-515 — a numba
-dict-of-dicts). Here the compaction runs on TPU as a two-key sort plus a
+dict-of-dicts). Here the compaction runs on the device as a two-key sort plus a
 run-length scatter: sort the tile's pixel pairs by (segId, value), flag
 run boundaries, and scatter the runs into fixed-capacity arrays. The
 output runs are identical — same order, same counts — to the host
@@ -51,11 +51,8 @@ def _runs_tail(s, v, valid_s, first):
     NO SCATTERS: run lengths come from a cummax of the run-start
     positions (count at a run's LAST element = index - first-position
     + 1), and the compaction is one more single-key sort moving the
-    last-of-run entries to the front in run order. Measured on a v5e, a
-    1M-key sort is ~1 ms while ONE 1M-update scatter is ~9.5 ms; the
-    previous formulation spent three such scatters per window
-    (27 of its ~40 ms), which is why the device stats engine lost to
-    the host engine (VERDICT round-4 item 3).
+    last-of-run entries to the front in run order. (Not yet re-measured
+    against a scatter formulation on a GPU.)
     """
     n = s.shape[0]
     idx = jnp.arange(n, dtype=jnp.int32)
@@ -98,11 +95,8 @@ def packBias(dtype, numSeg):
     not apply. When the imagery dtype fits 16 bits and segment IDs fit
     below 0xFFFF (reserved for the null sentinel), the (segId, value)
     pair packs into ONE uint32 key — a single-key sort over half the
-    key bytes. Measured on a v5e chip: only ~3% faster than the
-    two-key lax.sort (the TPU sort is comparator-compute-bound, not
-    key-bandwidth-bound), so the packing's real value is letting the
-    scene-resident feed keep 16-bit imagery in its NATIVE dtype on
-    device (half the HBM and upload). The bias maps signed values onto
+    key bytes. It also lets the scene-resident feed keep 16-bit imagery
+    in its NATIVE dtype on device (half the device memory and upload). The bias maps signed values onto
     unsigned order (order-preserving), so run order matches the
     two-key sort exactly."""
     if numSeg >= 0xFFFF:

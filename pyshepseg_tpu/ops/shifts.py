@@ -2,7 +2,7 @@
 Masked neighbour-shift utilities.
 
 The reference accesses 3x3 neighbourhoods with scalar loops and explicit
-edge clamping (reference: pyshepseg/shepseg.py:677-736, 1044-1058). On TPU
+edge clamping (reference: pyshepseg/shepseg.py:677-736, 1044-1058). Here
 the same access pattern is expressed as whole-array shifts with constant
 fill at the image border, which XLA lowers to cheap pad+slice ops that fuse
 into the surrounding elementwise work.

@@ -1,16 +1,16 @@
 """
-Multi-host (DCN) tiled segmentation on TPU pods via multi-controller JAX.
+Multi-host (DCN) tiled segmentation via multi-controller JAX.
 
-This is the TPU-pod-native replacement for the reference's
+This is the multi-host replacement for the reference's
 NetworkDataChannel scale-out (reference: pyshepseg/tiling.py:1799-1912,
 1616-1770): instead of a pickled-object TCP server, the control plane
 rides the JAX distributed coordination service (the same service that
-coordinates a pod over DCN) — barriers, a key-value store for broadcast
+coordinates a multi-host JAX job) — barriers, a key-value store for broadcast
 (fitted k-means model, tile grid) and for shipping worker status/error
 records and timing merges. The data plane is per-host: every process
-segments its round-robin shard of tiles on its own local chips (batched
+segments its round-robin shard of tiles on its own local cards (batched
 across them with the fused mesh pipeline when there is more than one) and
-writes the results to shared storage (a pod NFS mount, or any
+writes the results to shared storage (an NFS mount, or any
 path-addressable object store); process 0 stitches.
 
 Launch the SAME program on every host (the standard multi-controller
@@ -59,8 +59,8 @@ class DistributedContext:
             timeoutMs = 300000
         # Env floor: the CI-faked pod (N real subprocesses on one host)
         # has hit DEADLINE_EXCEEDED at the startup barrier purely from
-        # host load (loadavg ~9 while a parallel test suite runs —
-        # VERDICT round-4 weak #5). PYSHEPSEG_TPU_DCN_TIMEOUT_MS lets a
+        # host load (loadavg ~9 while a parallel test suite runs).
+        # PYSHEPSEG_TPU_DCN_TIMEOUT_MS lets a
         # loaded runner raise every barrier/KV deadline at once without
         # touching call sites (it never lowers an explicit timeout).
         envFloor = int(os.environ.get("PYSHEPSEG_TPU_DCN_TIMEOUT_MS", "0"))
@@ -197,7 +197,7 @@ def doTiledShepherdSegmentationDistributed(infile, outfile, workDir,
         coordinatorAddress=None, numProcesses=None, processId=None,
         barrierTimeout=600, tilesPerDevice=1):
     """
-    Multi-controller tiled segmentation across TPU-pod hosts. Run this
+    Multi-controller tiled segmentation across hosts. Run this
     function in every process of the job (one per host). ``workDir``
     must be shared storage visible to all hosts; temp tiles are written
     there and stitched by process 0.
@@ -205,9 +205,9 @@ def doTiledShepherdSegmentationDistributed(infile, outfile, workDir,
     Control plane: JAX distributed coordination service (barriers + KV
     broadcast of the fitted k-means model and tile grid, worker status
     and error records, timing merge) — the reference protocol's queue /
-    barrier / exception semantics mapped onto the pod runtime
+    barrier / exception semantics mapped onto the JAX distributed runtime
     (reference: pyshepseg/tiling.py:1799-1912). Compute: each host's
-    local chips.
+    local cards. Not yet run on several GPU hosts.
 
     Returns a TiledSegmentationResult on process 0; None elsewhere.
     """

@@ -1,7 +1,7 @@
 """
-CONC_MESH: tile-parallel segmentation across the chips of a TPU mesh.
+CONC_MESH: tile-parallel segmentation across the cards of a device mesh.
 
-This is the TPU-native replacement for the reference's worker-pool
+This is the mesh-based replacement for the reference's worker-pool
 concurrency (reference: pyshepseg/tiling.py CONC_THREADS/CONC_FARGATE):
 instead of scheduling Python workers, tiles are batched and sharded over a
 ``jax.sharding.Mesh`` — one tile per chip per step — and each chip runs the
@@ -153,7 +153,7 @@ class SegMeshMgr(_tiling.SegmentationConcurrencyMgr):
             self.bandNumbers[0]).ReadAsArray(0, 0, 1, 1).dtype
         nullVal = null_scalar(self.imgNullVal if hasNull else 0, imgDtype)
         # Whole-scene HBM cache: upload once, slice per-tile on device;
-        # the sharded device_put below then distributes slices over ICI
+        # the sharded device_put below then distributes slices over NVLink
         # instead of re-uploading every overlapping tile from the host.
         self.maybeBuildSceneCache(inDs)
 

@@ -8,7 +8,7 @@ pipeline — cluster assignment -> connected-component clumping ->
 single-pixel elimination -> small-segment elimination -> relabel — into one
 XLA program with a static segment capacity, eliminating every host
 round-trip. This is the unit of work the CONC_MESH backend runs on each
-chip of a TPU mesh, and what __graft_entry__ exposes for compile checks.
+card of a device mesh, and what __graft_entry__ exposes for compile checks.
 
 Mirrors reference behaviour end to end
 (reference: pyshepseg/shepseg.py:130-249).
@@ -29,7 +29,7 @@ from ..ops.elim_small import eliminate_small_segments_device, round_capacity
 
 def segment_tile(img_f, centers, img_null_val, max_spectral_diff,
                  min_seg_size: int, four_connected: bool, has_null: bool,
-                 capacity: int, clump_two_level=None):
+                 capacity: int):
     """
     Device: the full Shepherd pipeline on one tile, one XLA program.
 
@@ -49,8 +49,7 @@ def segment_tile(img_f, centers, img_null_val, max_spectral_diff,
     nbands, h, w = img_f.shape
     clusters = assign_clusters(img_f, centers, img_null_val, has_null)
     seg, _, _ = clump_labels(clusters.astype(jnp.int32), SEGNULLVAL,
-                             four_connected=four_connected,
-                             two_level=clump_two_level)
+                             four_connected=four_connected)
     # per-band planes: avoids band-minor layout copies on large tiles
     planes = band_planes(img_f.astype(jnp.float32))
     seg, _, size = eliminate_single_pixels_device(
@@ -95,13 +94,9 @@ def segment_tiles_vmapped(imgs_f, centers, img_null_val, max_spectral_diff,
     """
 
     def one(img_f):
-        # clump_two_level=False: under vmap a lax.cond runs both
-        # branches, so the global sweeps execute regardless and the
-        # fast path's verify/gather would be pure overhead
         return segment_tile(img_f, centers, img_null_val,
                             max_spectral_diff, min_seg_size,
-                            four_connected, has_null, capacity,
-                            clump_two_level=False)
+                            four_connected, has_null, capacity)
 
     return jax.vmap(one)(imgs_f)
 
@@ -132,10 +127,8 @@ def cluster_clump_tiles(imgs, centers, img_null_val,
 
     def one(img):
         clusters = assign_clusters(img, centers, img_null_val, has_null)
-        # two_level=False under vmap (see segment_tiles_vmapped)
         return clump_labels(clusters.astype(jnp.int32), SEGNULLVAL,
-                            four_connected=four_connected,
-                            two_level=False)
+                            four_connected=four_connected)
 
     return jax.vmap(one)(imgs)
 
@@ -157,11 +150,9 @@ def cluster_clump_edges_tiles(imgs, centers, img_null_val,
 
     def one(img):
         clusters = assign_clusters(img, centers, img_null_val, has_null)
-        # two_level=False under vmap (see segment_tiles_vmapped)
         seg, count, _ = clump_labels(clusters.astype(jnp.int32),
                                      SEGNULLVAL,
-                                     four_connected=four_connected,
-                                     two_level=False)
+                                     four_connected=four_connected)
         a, b, first, n_unique = edge_sort_keys(seg, four_connected)
         n_pairs, row_max = boundary_row_stats(seg, four_connected)
         # clump-image horizontal-run row max: bounds the post-single-
@@ -277,13 +268,11 @@ def segment_tiles_one_shot(imgs, centers, img_null_val,
     from ..shepseg import _segment_one_shot_device
 
     def one(img):
-        # clump_two_level=False under vmap (see segment_tiles_vmapped)
         return _segment_one_shot_device(
             img, centers, img_null_val, max_spectral_diff,
             has_null=has_null, four_connected=four_connected,
             min_seg_size=min_seg_size, capacity=capacity, e_cap=e_cap,
-            b_cap=b_cap, r_cap=r_cap, rl_cap=rl_cap,
-            clump_two_level=False)
+            b_cap=b_cap, r_cap=r_cap, rl_cap=rl_cap)
 
     return jax.vmap(one)(imgs)
 

@@ -1,9 +1,9 @@
 """
 Multi-chip connected-component labelling over a spatially-sharded image:
-the TPU-native halo-exchange analogue of the reference's overlapping-tile
+the halo-exchange analogue of the reference's overlapping-tile
 decomposition (reference: pyshepseg/tiling.py:1128-1306 reconciles tile
 halos on the host; here the "halo" is one row of labels exchanged between
-neighbouring chips over ICI every sweep).
+neighbouring cards over NVLink every sweep).
 
 The image is sharded by rows across the mesh. Each device runs the same
 min-label propagation body as ops/clump.py on its stripe (neighbour-min +
@@ -50,7 +50,7 @@ MAX_SHARDED_PIXELS = 2 ** 31 - 1
 
 def exchange_rows(arr, fill, n_dev):
     """The halo rows of ``arr`` from the stripes above and below over
-    ICI: returns (top_row, bottom_row), with ``fill`` beyond the image's
+    NVLink: returns (top_row, bottom_row), with ``fill`` beyond the image's
     first/last stripe. Shared by the sharded clump and the sharded full
     pipeline (shardmap_seg)."""
     my = jax.lax.axis_index(AXIS)
@@ -143,7 +143,7 @@ def _clump_sharded(img, ignore_val: int, four_connected: bool,
         labels, _ = c
         new = body(labels)
         changed_local = jnp.any(new != labels)
-        # global fixpoint over ICI
+        # global fixpoint over NVLink
         changed = jax.lax.psum(changed_local.astype(jnp.int32), AXIS) > 0
         return new, changed
 

@@ -1,5 +1,5 @@
 """
-Full Shepherd segmentation of ONE row-sharded image across a TPU mesh.
+Full Shepherd segmentation of ONE row-sharded image across a device mesh.
 
 parallel/mesh.py (CONC_MESH) scales by giving whole tiles to chips;
 parallel/shardmap_clump.py clumps a single oversized image across chips.
@@ -8,12 +8,13 @@ This module completes that axis: the ENTIRE pipeline — cluster assignment
 small-segment elimination -> contiguous relabel — on an image whose rows
 are sharded over the mesh, producing output bit-identical to the
 single-chip pipeline (parallel/pipeline.segment_tile). It is the
-TPU-native answer to "the scene does not fit one chip" that needs no
+answer to "the scene does not fit one card" that needs no
 overlap/stitch reconciliation at all (the reference's halo heuristics,
 tiling.py:1128-1306, exist only because its tiles are segmented
 independently; here the mesh IS one segmentation).
 
-Communication layout (all over ICI):
+Communication layout (all over NVLink; the mesh is 1-D over
+jax.devices(), with no torus shape to follow):
 
 - image-space stages exchange ONE halo row of labels/masks per sweep
   (``ppermute``), with global fixpoints by ``psum`` of change flags;
@@ -63,7 +64,7 @@ from .shardmap_clump import AXIS, _clump_sharded
 
 def _exchange_rows(arr, fill, n_dev):
     """The halo rows of ``arr`` from the stripes above and below over
-    ICI: returns (top_row, bottom_row), with ``fill`` beyond the image's
+    NVLink: returns (top_row, bottom_row), with ``fill`` beyond the image's
     first/last stripe."""
     my = jax.lax.axis_index(AXIS)
     up = [(i, (i - 1) % n_dev) for i in range(n_dev)]    # send to i-1

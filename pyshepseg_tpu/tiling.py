@@ -6,7 +6,7 @@ The raster is segmented in overlapping tiles, all seeded with one k-means
 model fitted to a whole-file subsample (for cross-tile consistency), then
 stitched: segment IDs are recoded to be globally unique and contiguous,
 with segments crossing a tile-overlap midline adopting the earlier tile's
-ID (halo reconciliation). Per-tile segmentation runs on TPU; the stitcher's
+ID (halo reconciliation). Per-tile segmentation runs on the JAX device; the stitcher's
 shared-segment matching and ownership relabelling are vectorized numpy
 (sorted reductions) instead of the reference's per-segment Python loops.
 
@@ -14,12 +14,12 @@ Concurrency backends (reference: tiling.py:85-109 CONC_* types):
 
 - CONC_NONE — serial per-tile loop
 - CONC_THREADS — thread pool; device dispatch is async so reads overlap
-  TPU compute
+  device compute
 - CONC_SUBPROC — local subprocess workers over the NetworkDataChannel
   (the CI-testable stand-in for true multi-host runs)
 - CONC_FARGATE — elastic AWS Fargate workers (requires boto3)
-- CONC_MESH — tiles batched across the chips of a TPU mesh via shard_map
-  (TPU-native; see pyshepseg_tpu.parallel.mesh)
+- CONC_MESH — tiles batched across the cards of a device mesh
+  (see pyshepseg_tpu.parallel.mesh)
 
 Also provides the decomposed 3-phase API
 (doTiledShepherdSegmentation_prepare / _doOne / _finalize) used by
@@ -224,13 +224,13 @@ def _axisTilePositions(totalSize, tileSize, overlapSize, grow):
     growing to just under 2x tileSize so no sliver tiles remain
     (reference: tiling.py:376-443).
 
-    grow=False is the TPU-native uniform grid: every tile is exactly
+    grow=False is the uniform grid: every tile is exactly
     tileSize; instead of growing, the final tile SHIFTS back so it ends
     at the raster edge, sharing a wider strip with its neighbour. All
     tiles then have one shape, so the whole scene segments with a single
     compiled device program regardless of how the raster size divides
     (XLA compiles per shape; grown edge tiles each cost a fresh
-    multi-minute compile at large tile sizes — see BASELINE.md).
+    compile of its own).
     """
     step = tileSize - overlapSize
     if grow:
@@ -297,7 +297,7 @@ def doTiledShepherdSegmentation(infile, outfile, tileSize=DFLT_TILESIZE,
     """
     Run tiled Shepherd segmentation on a large raster and write the stitched
     segment raster to outfile (reference: tiling.py:446-571 — same
-    parameters and semantics; per-tile compute runs on TPU).
+    parameters and semantics; per-tile compute runs on the JAX device).
 
     ``tileGrid`` selects the tile decomposition: 'uniform' (default) keeps
     every tile exactly tileSize — one compiled device program per scene —
@@ -360,11 +360,11 @@ class SegmentationConcurrencyConfig:
     Configuration for segmentation concurrency
     (reference: tiling.py:590-634).
 
-    ``deviceSceneCache`` controls the whole-scene HBM cache used by the
+    ``deviceSceneCache`` controls the whole-scene device-memory cache used by the
     in-process backends (CONC_NONE / CONC_THREADS / CONC_MESH): 'auto'
     (default)
     uploads the full scene to device memory once and slices tiles
-    on-device when the scene fits comfortably in HBM, eliminating the
+    on-device when the scene fits comfortably in device memory, eliminating the
     ~(tileSize/(tileSize-overlap))^2 redundant re-upload of overlap
     regions and the per-tile host->device transfer serialization; True
     forces it (errors if the scene cannot be read whole); False always
@@ -372,27 +372,18 @@ class SegmentationConcurrencyConfig:
 
     ``tilesPerDevice`` (CONC_MESH only) vmap-batches that many tiles
     into each per-device dispatch. Results are bit-identical for any
-    value, but with the one-shot steady state (speculative capacity
-    buckets, no per-dispatch sync) the default 1 is also the FASTEST
-    measured: pipelined one-tile dispatches cost 173 ms/tile on-chip
-    vs 246/277/261 ms for batches of 2/4/8 (1024^2 4-band tiles, one
-    window) — the batched fixpoint loops run until the SLOWEST tile in
-    the batch converges, and the batch multiplies the pipeline's
-    working set against the resident scene cache. The round-2 guidance
-    to batch 2-4 tiles only applied to the retired per-dispatch
-    capacity-sync path, where batching amortized a ~25 ms host round
-    trip per dispatch. CONC_THREADS still beats single-chip CONC_MESH
-    end-to-end when a high-latency link separates host and device (it
-    overlaps the link round trips across in-flight tiles); CONC_MESH
-    is the multi-chip backend.
+    value. The batched fixpoint loops run until the SLOWEST tile in the
+    batch converges, and the batch multiplies the pipeline's working
+    set against the resident scene cache, so the default is 1 (not yet
+    measured on a GPU). CONC_MESH is the multi-card backend.
 
     ``workerDevices`` (CONC_THREADS only): 'default' dispatches every
     worker thread's tiles to the default device; 'all' assigns worker
     threads to the host's local devices round-robin, so the thread
     pool's pipelined per-tile flow (reads overlapping device compute
-    overlapping result downloads) drives EVERY chip of a multi-chip
-    host instead of chip 0 — unlike CONC_MESH there is no lock-step
-    convergence across chips, each tile finishes on its own schedule.
+    overlapping result downloads) drives EVERY card of a multi-card
+    host instead of card 0 — unlike CONC_MESH there is no lock-step
+    convergence across cards, each tile finishes on its own schedule.
     Results are bit-identical either way (tile results are
     deterministic per tile; the stitcher consumes them in row-major
     order regardless of completion order).
@@ -432,39 +423,22 @@ class SegmentationConcurrencyConfig:
                 "workerDevices must be 'default' or 'all'")
 
 
-# Fraction of the device's memory the 'auto' scene cache may occupy.
-# The per-tile pipeline's working set is many tile-sized intermediates,
-# so the scene itself must stay a minority share of HBM.
+# Fraction of the device's memory the 'auto' scene cache may occupy
+# (the stats scene feed uses the same share). The per-tile pipeline's
+# working set is many tile-sized intermediates, so the scene itself must
+# stay a minority share of device memory. Not yet tuned on a GPU.
 SCENE_CACHE_HBM_FRACTION = 0.25
-# Fallback budget when the backend does not report a memory limit
-# (e.g. the CPU backend, whose arrays live in host RAM): a fraction of
-# the host's currently-available memory, so 'auto' never flips a
-# previously-streaming CPU run into an OOM. Used only if /proc/meminfo
-# is unreadable.
-SCENE_CACHE_DFLT_BUDGET = 1 * 1024 ** 3
-
-
-def _hostAvailableBytes():
-    """MemAvailable from /proc/meminfo, or 0 when unreadable."""
-    try:
-        with open('/proc/meminfo') as f:
-            for line in f:
-                if line.startswith('MemAvailable:'):
-                    return int(line.split()[1]) * 1024
-    except OSError:
-        pass
-    return 0
 
 
 class DeviceSceneCache:
     """
-    Whole-scene device-memory (HBM) image cache for tiled segmentation.
+    Whole-scene device-memory image cache for tiled segmentation.
 
     The reference re-reads every tile (including its overlap halo) from
     the raster and ships it to the compute separately (reference:
-    tiling.py:1436-1443). On TPU the scene usually fits in HBM many
-    times over (16 GB on a v5e holds a >2 GPix 4-band uint16 scene), so
-    the TPU-native layout is: upload the scene ONCE, then cut each
+    tiling.py:1436-1443). A scene usually fits in device memory many
+    times over (a quarter of an 80 GB card holds a 2.6 GPix 4-band
+    uint16 scene), so the layout here is: upload the scene ONCE, then cut each
     overlapping tile with an on-device dynamic_slice — zero per-tile
     host->device traffic and no re-upload of the overlap regions.
     """
@@ -484,17 +458,8 @@ class DeviceSceneCache:
     @staticmethod
     def fitsOnDevice(inDs, bandNumbers):
         """True if the scene is small enough for the 'auto' cache."""
-        import jax
-        dev = jax.devices()[0]
-        try:
-            budget = (dev.memory_stats() or {}).get('bytes_limit', 0)
-        except Exception:
-            budget = 0
-        if not budget:
-            # No device memory limit reported (CPU backend): the cache
-            # competes with everything else in host RAM.
-            budget = _hostAvailableBytes() or SCENE_CACHE_DFLT_BUDGET
-        budget = budget * SCENE_CACHE_HBM_FRACTION
+        from .platforms import deviceMemoryBudget
+        budget = deviceMemoryBudget(SCENE_CACHE_HBM_FRACTION)
         itemsize = inDs.GetRasterBand(
             list(bandNumbers)[0]).ReadAsArray(0, 0, 1, 1).itemsize
         sceneBytes = (len(list(bandNumbers)) * itemsize *
@@ -749,7 +714,7 @@ class SegmentationConcurrencyMgr:
 
     def maybeBuildSceneCache(self, inDs=None):
         """
-        Build the whole-scene HBM cache (DeviceSceneCache) when configured
+        Build the whole-scene device cache (DeviceSceneCache) when configured
         and applicable. Only the in-process backends (CONC_NONE /
         CONC_THREADS / CONC_MESH) can share a device-resident scene;
         out-of-process workers read the raster themselves.
@@ -1324,7 +1289,7 @@ class SegThreadsMgr(SegmentationConcurrencyMgr):
         if getattr(self.concurrencyCfg, 'workerDevices',
                    'default') == 'all':
             # each worker thread drives one local device round-robin —
-            # the pipelined per-tile flow covers every chip of the host
+            # the pipelined per-tile flow covers every card of the host
             import jax
             devices = jax.local_devices()
             self.workerDeviceList = [devices[i % len(devices)]
@@ -1354,7 +1319,7 @@ class SegThreadsMgr(SegmentationConcurrencyMgr):
                         # commit the tile to this worker's device; the
                         # jitted pipeline follows its committed input
                         # (device-to-device when the scene cache holds
-                        # the scene on another chip, else host->device)
+                        # the scene on another card, else host->device)
                         import jax
                         img = jax.device_put(img, device)
 
@@ -1383,24 +1348,85 @@ class SegThreadsMgr(SegmentationConcurrencyMgr):
         """No network communications required."""
 
 
+# Share of a card that the parent JAX process reserves when it does not
+# set XLA_PYTHON_CLIENT_MEM_FRACTION itself (JAX's default), and the
+# share held back from the workers as headroom.
+JAX_DEFAULT_MEM_FRACTION = 0.75
+SUBPROC_MEM_HEADROOM = 0.05
+
+
+def subprocWorkerEnv(workerID, numWorkers, cards, env=None):
+    """
+    Environment of CONC_SUBPROC worker ``workerID`` of ``numWorkers``,
+    so that each worker is a JAX process with a card of its own where
+    possible. ``cards`` names the parent's NVIDIA cards the way
+    CUDA_VISIBLE_DEVICES does (empty on the CPU, where ``env`` is
+    returned unchanged).
+
+    Worker i is pinned to card i modulo the number of cards through
+    CUDA_VISIBLE_DEVICES: with at least as many cards as workers each
+    worker has one to itself. The parent process holds its own share of
+    every card (XLA_PYTHON_CLIENT_MEM_FRACTION, JAX's default 0.75
+    unless set), so each worker is given an explicit share,
+    XLA_PYTHON_CLIENT_MEM_FRACTION = (1 - parent's share - 0.05) / the
+    number of workers on its card, set before the worker starts JAX. Too
+    small a share is an error: start the parent with a lower
+    XLA_PYTHON_CLIENT_MEM_FRACTION to leave the workers room.
+    """
+    env = dict(os.environ if env is None else env)
+    if not cards:
+        return env
+    parentShare = float(env.get("XLA_PYTHON_CLIENT_MEM_FRACTION",
+                                JAX_DEFAULT_MEM_FRACTION))
+    perCard = -(-numWorkers // len(cards))
+    share = (1.0 - parentShare - SUBPROC_MEM_HEADROOM) / perCard
+    if share < 0.02:
+        raise PyShepSegTilingError(
+            f"CONC_SUBPROC: {perCard} worker(s) per card leave each only "
+            f"{share:.3f} of a card beside the parent's {parentShare}; "
+            "lower the parent's XLA_PYTHON_CLIENT_MEM_FRACTION or use "
+            "fewer workers")
+    env["CUDA_VISIBLE_DEVICES"] = str(cards[workerID % len(cards)])
+    env["XLA_PYTHON_CLIENT_MEM_FRACTION"] = f"{share:.4f}"
+    return env
+
+
+def _parentCards():
+    """CUDA_VISIBLE_DEVICES-style names of this process's NVIDIA cards
+    (empty on the CPU)."""
+    import jax
+    devices = [d for d in jax.local_devices() if d.platform == "gpu"]
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible:
+        names = [c.strip() for c in visible.split(",") if c.strip()]
+    else:
+        names = [str(i) for i in range(len(devices))]
+    return names[:len(devices)]
+
+
 class SegSubprocMgr(SegmentationConcurrencyMgr):
     """
     Local subprocess workers over the NetworkDataChannel — the test bed for
     the remote-worker protocol (reference: tiling.py:1773-1796). This is
-    the CI-testable fake of a multi-host deployment.
+    the CI-testable fake of a multi-host deployment. Each worker is its
+    own JAX process; on NVIDIA cards see :func:`subprocWorkerEnv` for
+    how they share the cards with the parent.
     """
     concurrencyType = CONC_SUBPROC
 
     def startWorkers(self):
         self.processes = {}
-        for workerID in range(self.concurrencyCfg.numWorkers):
+        numWorkers = self.concurrencyCfg.numWorkers
+        cards = _parentCards()
+        for workerID in range(numWorkers):
             cmdWords = [sys.executable, "-m",
                         "pyshepseg_tpu.cmdline.segmentationworkercmd",
                         "--idnum", str(workerID),
                         "--channaddr", self.dataChan.addressStr()]
             self.processes[workerID] = subprocess.Popen(
                 cmdWords, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                universal_newlines=True)
+                universal_newlines=True,
+                env=subprocWorkerEnv(workerID, numWorkers, cards))
         self.workerBarrier.wait(
             timeout=self.concurrencyCfg.barrierTimeout)
 

@@ -20,13 +20,44 @@ DEFAULT_MINOVERVIEWDIM = 100
 DEFAULT_OVERVIEWLEVELS = [4, 8, 16, 32, 64, 128, 256, 512]
 
 
-# Backend-specific workarounds live in ONE quarantined module (the
-# library proper carries no environment-coupled branches); the names
-# are re-exported here because callers and scripts historically reached
-# them as pyshepseg_tpu.utils.* .
-from ._backend_quirks import (  # noqa: F401
-    onTunnelBackend, compilationCacheBypass, honourJaxPlatformsEnv,
-    deviceAnswers, awaitDevice, setupCompilationCache)
+def honourJaxPlatformsEnv():
+    """
+    Pin the platform named by the JAX_PLATFORMS environment variable
+    through the config API, which wins over any site customisation that
+    sets another platform at import time. Call before the first JAX
+    dispatch (every console script does). No-op when the variable is
+    unset.
+    """
+    p = os.environ.get("JAX_PLATFORMS")
+    if p:
+        import jax
+        jax.config.update("jax_platforms", p)
+
+
+def defaultCompilationCacheDir():
+    """``<checkout>/.jax_cache``: the directory above the package."""
+    return os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".jax_cache")
+
+
+def setupCompilationCache():
+    """
+    Enable JAX's persistent compilation cache and return its directory.
+
+    When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already keeps its
+    cache there and nothing else is set. Otherwise the cache is the
+    fixed :func:`defaultCompilationCacheDir`, so that every process of
+    this checkout finds the programs an earlier one compiled.
+    """
+    cacheDir = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if cacheDir:
+        return cacheDir
+    import jax
+    cacheDir = defaultCompilationCacheDir()
+    jax.config.update("jax_compilation_cache_dir", cacheDir)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    return cacheDir
 
 # GDAL float band types (public, reference: utils.py:44)
 gdalFloatTypes = {rio.GDT_Float32, rio.GDT_Float64}

@@ -1,8 +1,7 @@
 """
 Host-side profile of the stitch WORK path (tiling.stitchTiles minus the
-waits) — the leg that BENCH_r04 measured as the TPU-VM pipelined
-critical path (stitchwork 2.49 s vs device tile loop 1.79 s for the
-41 Mpix config-3 scene).
+waits), the host leg that races the device tile loop in a pipelined
+tiled run (ROADMAP S5; not yet measured on a GPU host).
 
 Builds a synthetic 64-tile segmentation equivalent in shape to config 3
 (6400^2 scene, 1024 px tiles, 256 px overlap, a few hundred segments per

@@ -2,7 +2,7 @@
 Pure-Python oracle implementing the *reference semantics* of
 ubarsc/pyshepseg's numba kernels, written from the algorithm specification
 (see SURVEY.md section 2.1 and reference file:line citations below). Slow —
-only for small test images. This is the ground truth the TPU kernels are
+only for small test images. This is the ground truth the device kernels are
 checked against, since numba is not available in this environment.
 """
 
@@ -190,3 +190,16 @@ def oracle_eliminate_small_segments(seg, img, maxSegId, minSegSize,
 
     oracle_relabel(seg, segSize, minSegId)
     return numElim
+
+
+def np_remap_and_relabel(seg, remap, size_out, min_seg_id=1):
+    """numpy ``table[seg]`` for the relabel gather: the orig->current id
+    remap composed with the contiguous relabel that drops ids of size 0
+    (reference: shepseg.py:739-777)."""
+    size_out = np.asarray(size_out)
+    ids = np.arange(size_out.shape[0])
+    unused = ((size_out == 0) & (ids >= min_seg_id)).astype(np.int64)
+    sub = np.concatenate([[0], np.cumsum(unused)[:-1]])
+    remap = np.asarray(remap).astype(np.int64)
+    table = (remap - sub[remap]).astype(np.uint32)
+    return table[np.asarray(seg).astype(np.int64)]

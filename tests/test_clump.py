@@ -1,7 +1,8 @@
-"""Parity tests for the TPU clump kernel vs the reference-semantics oracle
+"""Parity tests for the device clump kernel vs the reference-semantics oracle
 and scipy.ndimage.label (component equality)."""
 
 import numpy as np
+import pytest
 import scipy.ndimage as ndi
 
 from pyshepseg_tpu.ops.clump import clump
@@ -86,9 +87,8 @@ def test_clump_snake():
 
 
 def test_clump_matches_oracle_large(rng):
-    """Scan-order ID parity at a scale where block boundaries (Pallas
-    seeds), long runs, and null speckle all interact: 160x160, both
-    connectivities."""
+    """Scan-order ID parity at a scale where long runs and null speckle
+    interact: 160x160, both connectivities."""
     img = _random_cluster_img(rng, shape=(160, 160), nvals=3,
                               null_frac=0.15)
     for fourConnected in (True, False):
@@ -151,8 +151,23 @@ def test_clump_jump_schedule_invariant(rng):
             assert int(sweeps) < 60
 
 
+@pytest.mark.parametrize("fourConnected", [True, False])
+@pytest.mark.parametrize("shape", [(32, 32), (40, 56), (264, 264),
+                                   (257, 513)])
+def test_clump_matches_oracle_across_block_boundaries(rng, shape,
+                                                      fourConnected):
+    """Scan-order parity with the oracle on shapes below one block, on
+    exact multiples of nothing, and just past the BLOCK=256 boundaries
+    (one-pixel and partial last blocks), both connectivities."""
+    img = _random_cluster_img(rng, shape=shape, nvals=3, null_frac=0.1)
+    seg, nxt = clump(img, 0, fourConnected=fourConnected)
+    ref, ref_nxt = oracle_clump(img, 0, fourConnected=fourConnected)
+    np.testing.assert_array_equal(seg, ref)
+    assert nxt == ref_nxt
+
+
 def test_clump_two_level_merge_multiblock(rng):
-    """The two-level fast path (Pallas block-local solve + contracted
+    """The two-level fast path (block-local solve + contracted
     boundary-root merge, ops/clump.py:_merge_boundary_roots) against the
     oracle on an image spanning block boundaries in BOTH axes, with
     components crossing them."""
@@ -173,7 +188,7 @@ def test_clump_two_level_fallback_on_local_nonconvergence():
     converge within MAX_LOCAL_ITERS: the fast path's streaming verify
     must detect the stale labels and fall back to the global loop, so
     the result stays exact."""
-    h = w = 264   # block_y = 256: boundaries in both axes
+    h = w = 264   # BLOCK = 256: boundaries in both axes
     img = np.zeros((h, w), dtype=np.int32)
     for r in range(0, h, 2):
         img[r, :] = 1

@@ -5,7 +5,7 @@ Each subprocess runs the REAL multi-controller code path — JAX
 distributed coordination service (barriers, KV broadcast of the k-means
 model and tile grid, status/error/timing records), round-robin tile
 shards, shared-storage tile hand-off, stitch on process 0 — exactly as a
-TPU pod would, just with one CPU device per process. This mirrors the
+multi-host GPU cluster would, just with one CPU device per process. This mirrors the
 role of the reference's CONC_SUBPROC test bed
 (reference: pyshepseg/tiling.py:1773-1796).
 """
@@ -39,8 +39,9 @@ DRIVER = textwrap.dedent("""
     os.environ["XLA_FLAGS"] = os.environ.get("DCN_TEST_XLA_FLAGS", "")
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", sys.argv[6])
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", sys.argv[6])
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     sys.path.insert(0, sys.argv[7])                    # tests/ dir
     sys.path.insert(0, os.path.dirname(sys.argv[7]))   # repo root
     from pyshepseg_tpu.parallel.dcn import (

@@ -10,7 +10,7 @@ from pyshepseg_tpu.ops.elim_single import eliminateSinglePixels
 from pyshepseg_tpu.ops.elim_small import eliminateSmallSegments
 from oracle import (
     oracle_clump, oracle_seg_size, oracle_eliminate_single_pixels,
-    oracle_eliminate_small_segments)
+    oracle_eliminate_small_segments, np_remap_and_relabel)
 
 
 def _make_case(rng, shape=(32, 32), nbands=3, nclusters=5, null_frac=0.05):
@@ -217,3 +217,22 @@ def test_edge_sort_keys_compact_matches_full_sort(rng):
             max(ref_rowmax // 2, 1), id_bound=int(seg.max()) + 1)
         assert int(cp) == ref_pairs
         assert int(cr) == ref_rowmax
+
+
+@pytest.mark.parametrize("capacity", [16, 100, 1024, 8192, 32768])
+def test_remap_and_relabel_matches_numpy(rng, capacity):
+    """The one full-image gather of the relabel (XLA's gather at every
+    capacity) equals numpy's table[seg], with merged-away ids dropped
+    from the contiguous numbering."""
+    import jax
+    import jax.numpy as jnp
+    from pyshepseg_tpu.ops.elim_small import _remap_and_relabel
+    seg = rng.integers(0, capacity, size=(48, 40)).astype(np.uint32)
+    ids = np.arange(capacity, dtype=np.uint32)
+    remap = (rng.random(capacity) * (ids + 1)).astype(np.uint32)
+    remap[0] = 0
+    size = np.bincount(remap[seg.ravel()], minlength=capacity)
+    got = jax.jit(_remap_and_relabel)(jnp.asarray(seg), jnp.asarray(remap),
+                                      jnp.asarray(size.astype(np.uint32)))
+    np.testing.assert_array_equal(np.asarray(got),
+                                  np_remap_and_relabel(seg, remap, size))

@@ -3,7 +3,7 @@ fallbacks, and the capacity-policy unit tests.
 
 Split from test_shepseg.py so the process-sharded runner
 (scripts/partest.py) can schedule the suite's heaviest modules on
-separate workers (VERDICT round-4 item 6).
+separate workers.
 """
 
 import numpy as np

@@ -4,7 +4,7 @@ grid), worker-device routing, and worker-failure surfacing.
 
 Split from test_tiling.py so the process-sharded runner
 (scripts/partest.py) can schedule the suite's heaviest modules on
-separate workers (VERDICT round-4 item 6).
+separate workers.
 """
 
 import numpy as np
@@ -62,7 +62,7 @@ def test_tiles_per_device_validation():
 def test_tiled_threads_all_devices_matches_serial(serial_case, tmp_path):
     """workerDevices='all' routes each worker thread's tiles to a
     different local device (round-robin over the virtual 8-CPU mesh
-    here, TPU chips in production); output must stay bit-identical."""
+    here, GPUs in production); output must stay bit-identical."""
     import jax
     assert len(jax.local_devices()) == 8
     out2 = str(tmp_path / "out_threads_alldev.npseg")

@@ -857,7 +857,7 @@ def test_spatial_device_variogram_matches_host(tmp_path, rng,
 
 def test_custom_device_spatial_callback(tmp_path, rng, small_tiles):
     """A CUSTOM JAX-traceable spatial callback routed through the public
-    DeviceSpatialUserFunc contract (VERDICT round-2 item 6): masked
+    DeviceSpatialUserFunc contract: masked
     pixel count (int column) + masked mean (float column), device engine
     vs a plain host callback computing the same thing."""
     import shutil
